@@ -1,13 +1,11 @@
-"""eincm_tpu — TPU-native Edge-Informed Contrast Maximization.
+"""eincm_tpu — Edge-Informed Contrast Maximization in JAX, run on NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas framework for model-based event-camera optical
-flow estimation with the capabilities of
-robotic-vision-lab/Edge-Informed-Contrast-Maximization (WACV 2025), redesigned
-TPU-first:
+A from-scratch JAX/XLA framework for model-based event-camera optical flow
+estimation with the capabilities of
+robotic-vision-lab/Edge-Informed-Contrast-Maximization (WACV 2025):
 
-- The hot warp+splat kernel is expressed as banded one-hot matmuls on the MXU
-  instead of scatter-adds (reference: src/utils/event_utils.py:42-59), with a
-  fused Pallas kernel as the default TPU path.
+- The hot warp+splat is the reference's scatter-add of a 3x3 Gaussian
+  window per event (src/utils/event_utils.py:42-59), left to XLA.
 - The BFGS optimization loop runs entirely on device under `jit`
   (reference: host-side scipy via jaxopt, src/eincm/solver.py:165-183).
 - Event windows shard over a `jax.sharding.Mesh` via `shard_map`

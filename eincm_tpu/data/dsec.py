@@ -16,7 +16,6 @@ from pathlib import Path
 from typing import Dict
 
 import numpy as np
-import yaml
 from scipy.spatial.transform import Rotation as Rot
 
 from eincm_tpu.data.geometry import Transform, remap_bicubic, undistort_points_iter
@@ -120,6 +119,8 @@ class DSECDataLoader:
 
         with HDF5FileReader(self.dataset.rectify_map_h5_path) as rdr:
             self.rectify_map = rdr.read_dataset("rectify_map")
+
+        import yaml  # only the DSEC calibration files need PyYAML
 
         with open(self.dataset.calib_cam_to_cam_yml_path) as f:
             self.cam_to_cam = yaml.safe_load(f)

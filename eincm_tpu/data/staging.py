@@ -3,7 +3,7 @@
 Port of `EINCMExperiment.stage_datasample` (src/experiments/e00/exp_mgr.py:
 278-376): timestamp normalization to [0, 1], eval-event sub-slicing when the
 optimization window was padded beyond the eval span, and per-frame edge
-extraction. TPU-specific addition: optional padding of the event arrays to a
+extraction. Addition: optional padding of the event arrays to a
 fixed length (NaN events contribute nothing to any splat/mask) so a whole
 sequence compiles one solver program.
 """
@@ -41,80 +41,11 @@ def _normalize_img(img: np.ndarray) -> np.ndarray:
     return (img - img.min()) / (img.max() - img.min() + EPSN)
 
 
-def _row_sort_perm(ys: np.ndarray) -> np.ndarray:
-    """Stable row-local event permutation for the row-banded splat.
-
-    Uses the native multithreaded counting sort (native/events.cpp) when it
-    built — for the integer-valued rows real loaders produce it yields the
-    IDENTICAL permutation to a stable argsort, in O(n); falls back to numpy
-    argsort otherwise.
-    """
-    try:
-        from eincm_tpu.native import events as ne
-
-        if len(ys) and ne.available() and np.isfinite(ys).all():
-            n_rows = max(1, int(ys.max()) + 1)
-            return ne.sort_events_by_row_perm(ys.astype(np.float32), n_rows)
-    except Exception:
-        pass
-    return np.argsort(ys, kind="stable")
-
-
-def tile_sort_events(xs, ys, ts, ps, sensor_h: int, tile_h: int = None):
-    """Reorder events into (row-block, column)-sorted, block-chunk-padded
-    layout for the column-banded splat kernel (ops/splat_banded.py).
-
-    Events are stably sorted by (y // tile_h, x) so every fixed-size kernel
-    chunk sees a narrow row AND column range; each row-block's event run is
-    padded with NaNs to a multiple of the kernel chunk so no chunk straddles
-    two blocks. Blocks default to HALF the kernel's narrowest row band so
-    the remaining rows absorb the warp-induced row spread. The output length
-    is a static function of the input length
-    (ceil(n/CHUNK)*CHUNK + n_blocks*CHUNK), keeping one compile per
-    sequence. All loss reductions are permutation-invariant and NaN events
-    contribute nothing, so this is value-preserving.
-    """
-    from eincm_tpu.ops.splat_banded import _CHUNK, _TILE_H
-
-    if tile_h is None:
-        tile_h = _TILE_H
-    n = len(xs)
-    nb = -(-sensor_h // tile_h)
-    out_len = -(-n // _CHUNK) * _CHUNK + nb * _CHUNK
-
-    finite = np.isfinite(ys)
-    block = np.full(n, nb - 1, np.int64)
-    block[finite] = np.clip(
-        (ys[finite].astype(np.int64)) // tile_h, 0, nb - 1
-    )
-    order = np.lexsort((np.where(np.isfinite(xs), xs, np.inf), block))
-    xs, ys, ts, ps = xs[order], ys[order], ts[order], ps[order]
-    block = block[order]
-
-    out = [
-        np.full(out_len, np.nan, xs.dtype),
-        np.full(out_len, np.nan, ys.dtype),
-        np.full(out_len, np.nan, ts.dtype),
-        np.zeros(out_len, bool),
-    ]
-    pos = 0
-    for b in range(nb):
-        lo, hi = np.searchsorted(block, [b, b + 1])
-        cnt = hi - lo
-        for o, src in zip(out, (xs, ys, ts, ps)):
-            o[pos : pos + cnt] = src[lo:hi]
-        pos += -(-cnt // _CHUNK) * _CHUNK if cnt else 0
-    assert pos <= out_len
-    return tuple(out)
-
-
 def stage_datasample(
     datasample: Dict,
     edge_fn: Optional[Callable] = None,
     preprocess: bool = True,
     pad_to: Optional[int] = None,
-    sort_by_row: bool = False,
-    sort_by_tile: bool = False,
     dtype=np.float32,
 ) -> StagedSample:
     """Stage one raw loader sample.
@@ -125,10 +56,6 @@ def stage_datasample(
         edge_fn: images -> (n_imgs, H, W) edge maps; defaults to the full
             preprocess->canny->smoothen pipeline.
         pad_to: optionally pad events to this fixed count with NaNs.
-        sort_by_row: reorder events by sensor row (stable) so the row-banded
-            splat (`set_splat_impl('banded')`) sees row-local chunks. All
-            loss reductions are permutation-invariant; the eval-event subset
-            keeps its time order.
     """
     ev = datasample["events"]
     xs = np.asarray(ev["x"], np.float64)
@@ -168,10 +95,6 @@ def stage_datasample(
     image_ts_n = (image_ts - start_time) / span
     eval_events["t"] = (eval_events["t"] - start_time) / span
 
-    if sort_by_row:
-        order = _row_sort_perm(ys)
-        xs, ys, ts_n, ps = xs[order], ys[order], ts_n[order], ps[order]
-
     # edge extraction (exp_mgr.py:335-350)
     images_pp = np.stack([_normalize_img(im) for im in images])
     if edge_fn is None:
@@ -185,11 +108,6 @@ def stage_datasample(
         ys = np.concatenate([ys, fill])
         ts_n = np.concatenate([ts_n, fill])
         ps = np.concatenate([ps, np.zeros(pad, bool)])
-
-    if sort_by_tile:
-        xs, ys, ts_n, ps = tile_sort_events(
-            xs, ys, ts_n, ps, images.shape[-2]
-        )
 
     window = WindowSample(
         xs=xs.astype(dtype),

@@ -7,8 +7,8 @@ All reference loaders implement the same des_n_events policy
   to the stream bounds;
 - surplus: keep the latest (or earliest) des_n_events.
 
-Fixed event counts are what make windows batch under vmap and compile once on
-TPU — this is the padding discipline from SURVEY.md §5 "long-context".
+Fixed event counts are what make windows batch under vmap and compile once —
+this is the padding discipline from SURVEY.md §5 "long-context".
 """
 
 from __future__ import annotations

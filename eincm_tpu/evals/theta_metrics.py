@@ -5,9 +5,9 @@ recomputation, FWL, IWE variance, and — when ground truth is available — the
 sparse flow errors. Returns the same `evals` dict keys as the reference plus
 the formatted strings for log parity.
 
-TPU restructuring: the reference evaluates the bundle eagerly, op by op
-(dozens of dispatches per window, each a full round-trip on relayed
-backends). Here every device computation — objectives, loss, IWE variance and
+Restructuring: the reference evaluates the bundle eagerly, op by op
+(dozens of dispatches per window, each a host round-trip). Here every
+device computation — objectives, loss, IWE variance and
 the flow-error reductions — runs as ONE jitted dispatch (`_eval_bundle`),
 and only the small scalar/per-ref bundle is transferred to the host. The big
 per-event arrays (warped coordinates) never leave the device.

@@ -37,14 +37,13 @@ def main(argv=None):
 
         initialize_distributed(cfg.distributed)
         log(process_info())
-    if cfg.compilation_cache_dir:
-        import jax
+    from eincm_tpu.utils.jax_helpers import (
+        enable_compilation_cache,
+        update_jax_config,
+    )
 
-        jax.config.update("jax_compilation_cache_dir", cfg.compilation_cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compilation_cache(cfg.compilation_cache_dir)
     if cfg.jax_config:
-        from eincm_tpu.utils.jax_helpers import update_jax_config
-
         update_jax_config(cfg.jax_config)
     log(f"experiment '{cfg.experiment_name}' on {cfg.dataset.kind}/"
         f"{cfg.dataset.sequence_name}")

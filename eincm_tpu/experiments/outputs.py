@@ -48,7 +48,7 @@ def solve_result_to_record(res: SolveResult) -> Dict:
 
     The whole result pytree is fetched in ONE device_get — the naive
     per-field np.asarray conversion paid one host round-trip per leaf
-    (~50 per window), which dominates wall-clock on a relayed backend.
+    (~50 per window).
     """
     import jax
 

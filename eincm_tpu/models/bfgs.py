@@ -345,8 +345,8 @@ def minimize_bfgs(
         heartbeat_fn: optional host callback (iter: int32, f: scalar) fired
             once per iteration via `jax.debug.callback` — the on-device
             replacement for the reference's per-iteration loss printing
-            (src/eincm/callbacks.py:131-151). Each firing is a host hop;
-            keep it opt-in on relayed backends.
+            (src/eincm/callbacks.py:131-151). Each firing is a host hop,
+            so it stays opt-in.
         h0: optional (D, D) initial inverse-Hessian approximation (e.g. a
             previous related solve's final one — warm start); identity when
             None (scipy-parity). Non-finite or non-descent inits are safe:
@@ -587,7 +587,7 @@ def minimize_bounded_scalar(
 
     Golden-section (like the reference's L-BFGS-B from a single init) only
     finds the basin it starts in; `n_grid_probes >= 3` first evaluates a
-    uniform grid over the bounds in ONE vmapped batch (cheap on TPU — the
+    uniform grid over the bounds in ONE vmapped batch (cheap — the
     probes share a compiled objective) and shrinks the bracket to the best
     probe's neighbors, making the solve robust to multi-modal handover
     landscapes.

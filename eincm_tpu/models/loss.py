@@ -1,6 +1,7 @@
 """The EINCM bi-modal objective ("C^2Max"): contrast + edge correlation.
 
-Functional port of src/eincm/losses.py:39-276, restructured for TPU:
+Functional port of src/eincm/losses.py:39-276, restructured for one
+on-device solve:
 
 - `compute_window_statics` hoists every theta-independent quantity (zero-warp
   IWE, its contrast/correlation/divergence, the event mask) out of the

@@ -1,7 +1,8 @@
 """Coarse-to-fine multi-level EINCM solver, one XLA computation per window.
 
 Functional redesign of the reference's `MultipleLevelEINCMSolver`
-(src/eincm/solver.py:10-384). Differences, all TPU-motivated:
+(src/eincm/solver.py:10-384). Differences, all to keep the solve on the
+device:
 
 - The per-level BFGS (and its convergence-retry loop,
   src/eincm/solver.py:218-239) runs on device via `lax.while_loop` — no
@@ -97,7 +98,7 @@ class SolverConfig:
     # search in __post_init__: 6 for 'armijo', 10 for 'wolfe' — the budgets
     # mean different things. For 'armijo' it caps the value-only probes:
     # 10 kept accuracy identical to 25 (round 2), and 6 to 10 (round-3 A/B,
-    # scripts/ls_evals_ab.py — AEE neutral, probes −37%, p50 −10%: beyond
+    # PARITY.md — AEE neutral, probes −37%: beyond
     # the first few probes the search is almost always detecting line-search
     # failure at the f32 noise floor, not finding steps). For 'wolfe' it is
     # the bracket+zoom budget, validated at 10 (round 2); wolfe parity

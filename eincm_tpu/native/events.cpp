@@ -5,8 +5,7 @@
 // an in-sensor mask and four masked compactions — several multi-GB
 // temporaries at DSEC scale (hundreds of millions of events). These kernels
 // do the same work in one streaming multithreaded pass with a single
-// prefix-sum compaction, plus a parallel counting sort used by the
-// row-sorted staging the banded splat kernel wants.
+// prefix-sum compaction.
 
 #include <algorithm>
 #include <atomic>
@@ -103,29 +102,6 @@ int64_t rectify_filter_events(const uint16_t* x, const uint16_t* y,
     }
   });
   return counts[static_cast<size_t>(w)];
-}
-
-// Stable counting sort of events by integer row (for the row-banded splat's
-// sorted staging). Rows outside [0, n_rows) are clamped. Writes the
-// permutation (int64 indices) — the caller applies it to whichever channels
-// it stages.
-void sort_events_by_row(const float* ys, int64_t n, int64_t n_rows,
-                        int64_t* perm) {
-  std::vector<int64_t> hist(static_cast<size_t>(n_rows) + 1, 0);
-  std::vector<int32_t> row(static_cast<size_t>(n));
-  for (int64_t i = 0; i < n; ++i) {
-    float v = ys[i];
-    int64_t r = std::isfinite(v)
-                    ? std::min<int64_t>(n_rows - 1,
-                                        std::max<int64_t>(0, (int64_t)v))
-                    : n_rows - 1;
-    row[static_cast<size_t>(i)] = static_cast<int32_t>(r);
-    ++hist[static_cast<size_t>(r) + 1];
-  }
-  for (int64_t r = 0; r < n_rows; ++r) hist[r + 1] += hist[r];
-  for (int64_t i = 0; i < n; ++i) {
-    perm[hist[static_cast<size_t>(row[static_cast<size_t>(i)])]++] = i;
-  }
 }
 
 }  // extern "C"

@@ -2,9 +2,8 @@
 
 `rectify_filter_events` replaces the numpy gather/round/mask/compact in the
 DSEC loader (reference: src/dataloaders/dsec_loader.py:145-171) with one
-streaming multithreaded pass; `sort_events_by_row` is the counting-sort
-permutation used by the row-sorted staging. Callers fall back to numpy when
-the shared object is unavailable.
+streaming multithreaded pass. Callers fall back to numpy when the shared
+object is unavailable.
 """
 
 from __future__ import annotations
@@ -37,10 +36,6 @@ def _load() -> Optional[ctypes.CDLL]:
         ptr(np.int16), ptr(np.int16), ptr(np.int64), ptr(np.uint8),
     ]
     lib.rectify_filter_events.restype = ctypes.c_int64
-    lib.sort_events_by_row.argtypes = [
-        ptr(np.float32), ctypes.c_int64, ctypes.c_int64, ptr(np.int64)
-    ]
-    lib.sort_events_by_row.restype = None
     _lib = lib
     return lib
 
@@ -75,11 +70,3 @@ def rectify_filter_events(
     kept = int(kept)
     return ox[:kept].copy(), oy[:kept].copy(), ot[:kept].copy(), op[:kept].copy()
 
-
-def sort_events_by_row_perm(ys: np.ndarray, n_rows: int) -> np.ndarray:
-    """Stable permutation sorting events by integer row (counting sort)."""
-    lib = _load()
-    ys = np.ascontiguousarray(ys, np.float32)
-    perm = np.empty(len(ys), np.int64)
-    lib.sort_events_by_row(ys, len(ys), int(n_rows), perm)
-    return perm

@@ -1,14 +1,13 @@
 """Small image filters on device (Scharr gradients, blur, divergence).
 
 The reference applies 3x3 kernels with `jax.scipy.signal.convolve(mode='same')`
-(true convolution, zero padding; src/utils/img_utils.py:414-432). On TPU a
-tiny-kernel conv op is the wrong lowering: XLA emits a standalone convolution
-kernel (several, at HIGHEST precision) per call, and the EINCM loss performs
-~20 such 3x3 filters per evaluation — kernel-launch floor dominated the loss
-latency. Instead each 3x3 filter is expressed as a shift-and-add *stencil*
-(9 shifted slices of the zero-padded image, scaled and summed). That is pure
-elementwise VPU work which XLA fuses with its neighbors into a single kernel,
-and it is exact f32 arithmetic — no MXU precision concerns.
+(true convolution, zero padding; src/utils/img_utils.py:414-432). A
+tiny-kernel conv op makes XLA emit a standalone convolution kernel per call,
+and the EINCM loss performs ~20 such 3x3 filters per evaluation. Instead
+each 3x3 filter is expressed as a shift-and-add *stencil* (9 shifted slices
+of the zero-padded image, scaled and summed): elementwise work that XLA
+fuses with its neighbors, in exact f32 arithmetic with no matmul precision
+to choose.
 """
 
 from __future__ import annotations

@@ -4,9 +4,8 @@ Reference: src/utils/theta_utils.py:10-37 (`scale_theta_to_sensor_size`),
 src/eincm/solver.py:350-377 (`_upscale_theta`, `_downscale_theta`).
 
 All resizes go through `jax.image.scale_and_translate`, a dense separable
-resampling that XLA lowers to two small matmuls — already the TPU-native
-formulation. The 'repeat' upscale (the reference's default pyramid init) is a
-reshape-broadcast.
+resampling that XLA lowers to two small matmuls. The 'repeat' upscale (the
+reference's default pyramid init) is a reshape-broadcast.
 """
 
 from __future__ import annotations

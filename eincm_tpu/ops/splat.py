@@ -1,26 +1,15 @@
-"""Image-of-Warped-Events (IWE) accumulation, TPU-first.
+"""Image-of-Warped-Events (IWE) accumulation by scatter-add.
 
 The reference builds the IWE by scatter-adding a 3x3 window of 2-D standard
 normal pdf values around each (rounded) warped event coordinate
-(reference: src/utils/event_utils.py:13-61, `events_to_pdf_frame`).
+(reference: src/utils/event_utils.py:13-61, `events_to_pdf_frame`). That is
+the design here too: each event touches window_size**2 texels, and XLA emits
+one scatter kernel whose colliding updates resolve with atomic adds.
 
-Scatter-add is the wrong primitive for a TPU. Because the 2-D Gaussian with
-identity covariance is separable — pdf(qx, qy) = g(qx) * g(qy) with
-g(q) = exp(-q^2/2)/sqrt(2*pi) — each event's windowed splat is a rank-1 outer
-product, so the whole IWE is
-
-    IWE = U^T @ V,   U: (n_events, H), V: (n_events, W)
-
-where U/V are banded matrices holding the per-axis Gaussian weights inside the
-window and zeros elsewhere. Building U/V is pure VPU work (broadcasted iota +
-exp) and the contraction runs on the MXU. Out-of-sensor contributions vanish
-because the iota range only covers the sensor, reproducing the reference's
-`mode='drop'` semantics. Events are processed in fixed-size chunks under
-`lax.scan` so the banded matrices stay small and fuse well.
-
-Gradients flow through g(.) only; the window placement (round) has zero
-gradient — identical to the reference, where the integer cast is
-non-differentiable.
+Gradients flow through the pdf values only; the window placement (round)
+has zero gradient — identical to the reference, where the integer cast is
+non-differentiable. The VJP of the scatter-add is a gather of the cotangent
+at the same texels.
 """
 
 from __future__ import annotations
@@ -33,48 +22,6 @@ import jax
 import jax.numpy as jnp
 
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
-
-# MXU precision of the splat contraction. Measured on TPU v5e at DSEC scale
-# (480x640, 1.5M events): HIGHEST (bf16x6) 39 Mev/s, HIGH (bf16x3, ~f32
-# accuracy) 73 Mev/s, DEFAULT (single-pass bf16) 123+ Mev/s. HIGH is the
-# default: f32-equivalent accuracy for the pdf weights at 2x the speed.
-_SPLAT_PRECISION = jax.lax.Precision.HIGH
-
-
-def set_splat_precision(precision: str) -> None:
-    """Set splat matmul precision: 'highest' | 'high' | 'default'."""
-    global _SPLAT_PRECISION
-    _SPLAT_PRECISION = {
-        "highest": jax.lax.Precision.HIGHEST,
-        "high": jax.lax.Precision.HIGH,
-        "default": jax.lax.Precision.DEFAULT,
-    }[precision]
-
-
-# Splat implementation: 'xla' (chunked one-hot matmuls, precision-controlled)
-# or 'pallas' (fused VMEM kernel, ~2.3x faster forward on TPU at single-pass
-# bf16 accuracy — see ops/splat_pallas.py). Consulted at trace time; the
-# pallas path only engages on the TPU backend. End-to-end solves produce
-# equivalent accuracy (synthetic recovery AEE 0.510 vs 0.514 px), so the
-# faster kernel is the default.
-_SPLAT_IMPL = "pallas"
-
-
-def set_splat_impl(name: str) -> None:
-    """'xla' | 'pallas' (full-height kernel) | 'pallas_banded' (row-banded
-    kernel with fallback; wants row-sorted events) | 'pallas_banded2d'
-    (row+column-banded; wants tile-sorted events — see ops/splat_banded.py)
-    | 'banded' (XLA row-banded variant)."""
-    assert name in (
-        "xla", "pallas", "banded", "pallas_banded", "pallas_banded2d"
-    ), name
-    global _SPLAT_IMPL
-    _SPLAT_IMPL = name
-
-
-def get_splat_impl() -> str:
-    return _SPLAT_IMPL
-
 
 # Opt-in reproduction of the reference's negative-index wrap (a JAX
 # negative-indexing artifact where splat mass at coordinate -k teleports to
@@ -90,59 +37,24 @@ def set_splat_wrap_compat(enable: bool) -> None:
     global _SPLAT_WRAP_COMPAT
     _SPLAT_WRAP_COMPAT = bool(enable)
 
-# Budget for the banded one-hot matrices of one chunk, in floats. The chunk
-# size (the MXU contraction dimension) is derived from it so small windows run
-# as a single matmul (minimal op count — dispatch overhead dominates small
-# workloads) while huge windows stay within a modest VMEM/HBM footprint.
-_CHUNK_BUDGET_FLOATS = 16 * 1024 * 1024
-
-
-def _auto_chunk(n_events: int, h: int, w: int) -> int:
-    per_event = h + w
-    chunk = max(512, _CHUNK_BUDGET_FLOATS // per_event)
-    chunk = min(chunk, max(512, n_events))
-    # round up to a multiple of 128 for clean MXU tiling
-    return -(-chunk // 128) * 128
-
 
 def _gauss1d(q: jax.Array) -> jax.Array:
     """Standard normal pdf, one axis of the separable 2-D splat kernel."""
     return jnp.exp(-0.5 * q * q) * jnp.asarray(_INV_SQRT_2PI, q.dtype)
 
 
-def _axis_weights(
-    coords: jax.Array, n: int, half_window: int, wrap: bool = False
-) -> jax.Array:
-    """Banded per-axis splat weights.
+def _texel_index(
+    t: jax.Array, n: int, wrap: bool
+) -> Tuple[jax.Array, jax.Array]:
+    """Integer texel indices along one axis and their in-sensor mask.
 
-    Args:
-        coords: (E,) float warped coordinates along this axis.
-        n: axis length (H or W).
-        half_window: window radius (1 for the reference's 3x3 window).
-        wrap: reproduce the reference's negative-index wrapping — splat
-            texels at coordinate s in [-n, -1] land at n + s with the
-            *unwrapped* Gaussian quantile (src/utils/event_utils.py:59:
-            `.at[rs, cs].add(pdf, mode='drop')` wraps negatives before the
-            drop). Off by default; parity-study compatibility only.
-
-    Returns:
-        (E, n) matrix; row e holds g(i - coords[e]) for integer i within
-        `half_window` of round(coords[e]), zero elsewhere. NaN coords yield
-        all-zero rows (dropped events).
-    """
-    dtype = coords.dtype
-    rounded = jnp.round(coords)  # float; exact integers within f32 range
-    idx = jax.lax.broadcasted_iota(dtype, (coords.shape[0], n), dimension=1)
-    # |i - round(c)| <= half_window, computed in float: both are exact ints.
-    in_band = jnp.abs(idx - rounded[:, None]) <= (half_window + 0.5)
-    q = idx - coords[:, None]
-    w = jnp.where(in_band, _gauss1d(q), jnp.zeros((), dtype))
+    `t` holds float texel coordinates (exact integers, or NaN for dropped
+    events). With `wrap`, coordinates in [-n, -1] land at n + t, as the
+    reference's negative indexing does before its out-of-range drop."""
     if wrap:
-        # second band at i = n + s for texel coordinates s in [-n, -1]
-        in_wrap = jnp.abs((idx - n) - rounded[:, None]) <= (half_window + 0.5)
-        qw = (idx - n) - coords[:, None]
-        w = w + jnp.where(in_wrap, _gauss1d(qw), jnp.zeros((), dtype))
-    return w
+        t = jnp.where((t < 0) & (t >= -n), t + n, t)
+    valid = (t >= 0) & (t <= n - 1)  # False for NaN
+    return jnp.where(valid, t, 0).astype(jnp.int32), valid
 
 
 def events_to_pdf_frame(
@@ -150,186 +62,44 @@ def events_to_pdf_frame(
     ys: jax.Array,
     sensor_size: Tuple[int, int] = (260, 346),
     window_size: int = 3,
-    chunk_size: int | None = None,
 ) -> jax.Array:
-    """IWE via separable one-hot matmuls (MXU path).
+    """IWE of warped events: one scatter-add of every event's window.
 
     Matches reference `events_to_pdf_frame` (src/utils/event_utils.py:13-61):
-    each event deposits a 3x3 (window_size x window_size) patch of 2-D standard
-    normal pdf values centred at its rounded coordinate; out-of-sensor texels
-    are dropped.
+    each event deposits a window_size x window_size patch of 2-D standard
+    normal pdf values centred at its rounded coordinate. Out-of-sensor texels
+    and NaN events are dropped (the reference wraps negative indices; see
+    `set_splat_wrap_compat`).
 
     Args:
         xs, ys: (E,) float warped event coordinates (x = column, y = row).
         sensor_size: (H, W).
         window_size: odd window size; radius = window_size // 2.
-        chunk_size: events per scan step (MXU contraction dim); None = auto.
 
     Returns:
-        (H, W) accumulation frame, dtype of xs (floating).
+        (H, W) accumulation frame in at least float32 (float64 for x64
+        inputs).
     """
     H, W = sensor_size
     hw = window_size // 2
-    wrap = _SPLAT_WRAP_COMPAT
-    # the Pallas kernels accumulate in f32; honor an x64 caller's dtype
-    # contract by staying on the XLA path (TPUs have no fast f64 anyway)
-    f64 = jnp.result_type(xs.dtype, jnp.float32) == jnp.float64
-    on_tpu = jax.default_backend() == "tpu" and not f64
-    if not wrap and _SPLAT_IMPL == "pallas" and on_tpu:
-        from eincm_tpu.ops.splat_pallas import events_to_pdf_frame_pallas
-
-        return events_to_pdf_frame_pallas(xs, ys, sensor_size, window_size)
-    if (
-        not wrap
-        and _SPLAT_IMPL in ("pallas_banded", "pallas_banded2d")
-        and on_tpu
-    ):
-        from eincm_tpu.ops.splat_banded import (
-            events_to_pdf_frame_pallas_banded,
-        )
-
-        return events_to_pdf_frame_pallas_banded(
-            xs, ys, sensor_size, window_size,
-            try_col_band=(_SPLAT_IMPL == "pallas_banded2d"),
-        )
-    if not wrap and _SPLAT_IMPL == "banded":
-        return events_to_pdf_frame_banded(xs, ys, sensor_size, window_size)
-    if chunk_size is None:
-        chunk_size = _auto_chunk(xs.shape[0], H, W)
     dtype = jnp.result_type(xs.dtype, jnp.float32)
     xs = xs.astype(dtype)
     ys = ys.astype(dtype)
-
-    n = xs.shape[0]
-    n_chunks = max(1, -(-n // chunk_size))
-    pad = n_chunks * chunk_size - n
-    if pad:
-        # NaN-pad: padded events fall outside every band and contribute zero.
-        fill = jnp.full((pad,), jnp.nan, dtype)
-        xs = jnp.concatenate([xs, fill])
-        ys = jnp.concatenate([ys, fill])
-
-    if n_chunks == 1:
-        # single matmul, no scan machinery
-        u = _axis_weights(ys, H, hw, wrap)
-        v = _axis_weights(xs, W, hw, wrap)
-        return jax.lax.dot_general(
-            u,
-            v,
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=dtype,
-            precision=_SPLAT_PRECISION,
-        )
-
-    xs = xs.reshape(n_chunks, chunk_size)
-    ys = ys.reshape(n_chunks, chunk_size)
-
-    def step(frame, chunk):
-        cx, cy = chunk
-        u = _axis_weights(cy, H, hw, wrap)  # (E, H)
-        v = _axis_weights(cx, W, hw, wrap)  # (E, W)
-        frame = frame + jax.lax.dot_general(
-            u,
-            v,
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=dtype,
-            precision=_SPLAT_PRECISION,
-        )
-        return frame, None
-
-    frame0 = jnp.zeros((H, W), dtype)
-    # remat: the backward otherwise stores every chunk's (E, H) + (E, W)
-    # one-hot weights (HBM OOM in the AOT compiler at DSEC's 1.5M events
-    # — see events_to_pdf_frame_banded for the measured account)
-    frame, _ = jax.lax.scan(jax.checkpoint(step), frame0, (xs, ys))
-    return frame
-
-
-_MULTIREF_STACKED = False
-
-
-def set_splat_multiref_stacked(enabled: bool):
-    """Toggle the single-grid stacked multi-ref splat (see
-    `_splat_multi_ref_stacked`). Takes effect at the next trace."""
-    global _MULTIREF_STACKED
-    _MULTIREF_STACKED = bool(enabled)
-
-
-def _splat_multi_ref_stacked(
-    warped_xs: jax.Array,
-    warped_ys: jax.Array,
-    sensor_size: Tuple[int, int],
-    window_size: int,
-    try_col_band: bool,
-    interpret: bool = False,
-) -> jax.Array:
-    """All reference frames in ONE banded-kernel invocation.
-
-    Refs stack vertically into a virtual (R*H + (R-1)*(window_size-1), W)
-    sensor with `window_size - 1` guard rows between frames: ref i's events
-    get their warped rows offset by i*(H + guard), so one kernel call
-    splats every ref, and the guard rows absorb the boundary spill a 3x3
-    window can produce (absorbed rows are discarded by the row gather
-    below, exactly like the per-ref kernel's out-of-sensor drop). Events
-    with no in-sensor contribution (warped row outside (-hw-0.5,
-    H-1+hw+0.5)) are moved to the far sentinel BEFORE offsetting so they
-    cannot leak into a neighboring frame; they contribute nothing and get
-    zero gradient in both formulations.
-
-    Why: the per-ref loop pays the kernel's fixed pipeline warmup/drain
-    and dispatch cost R times (TODO.md multi-ref item: 2-ref fwd 5.6 ms vs
-    2x single-ref 6.8 ms at DSEC scale); stacking pays it once while the
-    banding preconditions survive the frame boundary (each ref's events
-    stay row/tile-sorted, and post-mask rows at the boundary are monotone:
-    ref i ends <= i*(H+guard) + H + 0.5 < (i+1)*(H+guard) - 0.5 <= ref
-    i+1's start).
-
-    The keep mask reproduces the kernels' drop semantics exactly (round
-    half-even, then test window rows against [0, H)), so exact-.5 boundary
-    coordinates behave identically to the per-ref call; the frame stride is
-    forced EVEN so round-half-even of an exact tie is preserved by the
-    offset addition.
-
-    Sub-ULP rounding deviation (measured, documented): the f32 addition of
-    the frame offset can SNAP a coordinate lying within one ULP of a .5
-    boundary across it (ULP grows with magnitude: ~3.1e-5 at row 445 vs
-    ~1.2e-5 at row 123), flipping that event's round() by one and shifting
-    its 3x3 window one row vs the per-ref loop. Probability ~ULP per event
-    (~3e-5): a few dozen events per DSEC window move one row — orders of
-    magnitude below the f32 noise floor the solver already terminates at.
-    Forensics: tests/test_splat_pallas.py stacked tests quantize
-    coordinates to exact binary fractions so the offset addition is exact
-    and the comparison isolates real kernel behavior.
-    """
-    from eincm_tpu.ops.splat_banded import events_to_pdf_frame_pallas_banded
-
-    R, E = warped_xs.shape
-    H, W = sensor_size
-    hw = window_size // 2
-    guard = window_size - 1
-    # an EVEN frame stride keeps round-half-even consistent for exact-.5
-    # coordinates after the offset (odd strides would flip their parity)
-    if (H + guard) % 2:
-        guard += 1
-    Hv = R * H + (R - 1) * guard
-    dtype = warped_ys.dtype
-    offs = (jnp.arange(R, dtype=dtype) * (H + guard))[:, None]
-    # keep iff the 3x3 window has any in-sensor row, using the SAME
-    # round-half-even the kernels apply — exact-.5 boundary coordinates
-    # then match the per-ref call bit for bit
-    ry = jnp.round(warped_ys)
-    keep = (ry >= -hw) & (ry <= H - 1 + hw)
-    sent = jnp.asarray(-1e4, dtype)
-    ys = jnp.where(keep, warped_ys + offs, sent)
-    xs = jnp.where(keep, warped_xs, sent)
-    frame = events_to_pdf_frame_pallas_banded(
-        xs.reshape(-1), ys.reshape(-1), (Hv, W), window_size,
-        try_col_band=try_col_band, interpret=interpret,
+    d = jnp.arange(-hw, hw + 1, dtype=dtype)
+    cols = jnp.round(xs)[:, None] + d  # (E, k)
+    rows = jnp.round(ys)[:, None] + d
+    gx = _gauss1d(cols - xs[:, None])
+    gy = _gauss1d(rows - ys[:, None])
+    ci, cvalid = _texel_index(cols, W, _SPLAT_WRAP_COMPAT)
+    ri, rvalid = _texel_index(rows, H, _SPLAT_WRAP_COMPAT)
+    valid = rvalid[:, :, None] & cvalid[:, None, :]  # (E, k, k)
+    pdf = jnp.where(valid, gy[:, :, None] * gx[:, None, :], 0.0)
+    # dropped texels get the one-past-the-end index, which mode="drop" skips
+    flat = jnp.where(valid, ri[:, :, None] * W + ci[:, None, :], H * W)
+    frame = jnp.zeros((H * W,), dtype).at[flat.ravel()].add(
+        pdf.ravel(), mode="drop"
     )
-    rows = (
-        jnp.arange(R)[:, None] * (H + guard) + jnp.arange(H)[None, :]
-    )  # (R, H)
-    return frame[rows]
+    return frame.reshape(H, W)
 
 
 def splat_multi_ref(
@@ -338,133 +108,11 @@ def splat_multi_ref(
     sensor_size: Tuple[int, int],
     window_size: int = 3,
 ) -> jax.Array:
-    """(n_refs, E) warped coords -> (n_refs, H, W) IWEs.
-
-    vmap for the grid-batchable kernels; for the banded kernels either an
-    unrolled per-ref loop (its scalar-prefetch grid spec does not batch
-    under vmap, and n_refs is a small static constant) or — with
-    `set_splat_multiref_stacked(True)` — one stacked-grid invocation."""
-    f64 = jnp.result_type(warped_xs.dtype, jnp.float32) == jnp.float64
-    on_tpu = jax.default_backend() == "tpu" and not f64
-    if (
-        _SPLAT_IMPL in ("pallas_banded", "pallas_banded2d")
-        and on_tpu
-        and not _SPLAT_WRAP_COMPAT
-    ):
-        from eincm_tpu.ops.splat_banded import (
-            events_to_pdf_frame_pallas_banded,
-        )
-
-        col = _SPLAT_IMPL == "pallas_banded2d"
-        if _MULTIREF_STACKED and warped_xs.shape[0] > 1:
-            return _splat_multi_ref_stacked(
-                warped_xs, warped_ys, sensor_size, window_size, col
-            )
-        return jnp.stack(
-            [
-                events_to_pdf_frame_pallas_banded(
-                    warped_xs[i], warped_ys[i], sensor_size, window_size,
-                    try_col_band=col,
-                )
-                for i in range(warped_xs.shape[0])
-            ]
-        )
+    """(n_refs, E) warped coords -> (n_refs, H, W) IWEs."""
     splat = partial(
         events_to_pdf_frame, sensor_size=sensor_size, window_size=window_size
     )
     return jax.vmap(splat)(warped_xs, warped_ys)
-
-
-def events_to_pdf_frame_banded(
-    xs: jax.Array,
-    ys: jax.Array,
-    sensor_size: Tuple[int, int],
-    window_size: int = 3,
-    band: int = 128,
-    chunk_size: int = 2048,
-) -> jax.Array:
-    """Row-banded IWE splat for events pre-sorted by unwarped row.
-
-    When events arrive sorted by y, a fixed-size chunk's *warped* rows span a
-    narrow range (the chunk's unwarped rows span ~chunk/(E/H) rows; warping
-    shifts them by at most max|theta_y * dt|). Each chunk therefore
-    contracts against a (band, W) output slab anchored at its own minimum
-    warped row instead of the full (H, W) frame:
-
-        MACs/event: band * W   vs   H * W   (3.75x fewer at DSEC scale with
-                                             band=128, H=480)
-
-    Contributions more than `band` rows above a chunk's minimum warped row
-    are dropped — with the default band this only happens when the vertical
-    velocity exceeds ~(band - chunk_row_span - 3) pixels per window, far
-    beyond any reference configuration. Column displacement is unrestricted.
-
-    Use via `set_splat_impl('banded')` together with row-sorted staging
-    (`stage_datasample(..., sort_by_row=True)`); all loss reductions are
-    permutation-invariant, so event order is free.
-    """
-    H, W = sensor_size
-    hw = window_size // 2
-    band = min(band, H)
-    dtype = jnp.result_type(xs.dtype, jnp.float32)
-    xs = xs.astype(dtype)
-    ys = ys.astype(dtype)
-
-    n = xs.shape[0]
-    n_chunks = max(1, -(-n // chunk_size))
-    pad = n_chunks * chunk_size - n
-    if pad:
-        fill = jnp.full((pad,), jnp.nan, dtype)
-        xs = jnp.concatenate([xs, fill])
-        ys = jnp.concatenate([ys, fill])
-    xs = xs.reshape(n_chunks, chunk_size)
-    ys = ys.reshape(n_chunks, chunk_size)
-
-    iota_b = jnp.arange(band, dtype=dtype)
-
-    def step(frame, chunk):
-        cx, cy = chunk
-        # anchor the band one row below the chunk's lowest IN-SENSOR warped
-        # row: padding sentinels (finite but far off-sensor, models/loss.py
-        # _sanitize_events) and off-sensor reals must not drag the anchor
-        # down — a nanmin over all rows pinned mixed chunks' bands to row 0,
-        # silently dropping their in-sensor mass. Chunks with no in-sensor
-        # event anchor at 0 and contribute nothing.
-        rounded_cy = jnp.round(cy)
-        inside = (
-            jnp.isfinite(cy)
-            & (rounded_cy + hw >= 0)
-            & (rounded_cy - hw <= H - 1)
-        )
-        lo = jnp.min(jnp.where(inside, cy, jnp.asarray(jnp.inf, dtype)))
-        lo = jnp.where(jnp.isfinite(lo), lo, 0.0)
-        b = jnp.clip(jnp.round(lo) - hw, 0, H - band).astype(jnp.int32)
-
-        rows = b.astype(dtype) + iota_b  # (band,) global row coords
-        rounded = jnp.round(cy)
-        in_band = jnp.abs(rows[None, :] - rounded[:, None]) <= (hw + 0.5)
-        q = rows[None, :] - cy[:, None]
-        u = jnp.where(in_band, _gauss1d(q), jnp.zeros((), dtype))  # (E, band)
-        v = _axis_weights(cx, W, hw)  # (E, W)
-        partial = jax.lax.dot_general(
-            u, v, (((0,), (0,)), ((), ())),
-            preferred_element_type=dtype,
-            precision=_SPLAT_PRECISION,
-        )  # (band, W)
-        slab = jax.lax.dynamic_slice(frame, (b, 0), (band, W))
-        frame = jax.lax.dynamic_update_slice(frame, slab + partial, (b, 0))
-        return frame, None
-
-    frame0 = jnp.zeros((H, W), dtype)
-    # remat the scan body: without it the backward pass stores every
-    # chunk's (E, band) + (E, W) one-hot weight tensors — 18+ GB at DSEC
-    # scale (1.5M events), which is why the un-remat'd XLA path could not
-    # compile there. Recomputing the weights in the backward keeps HBM at
-    # O(chunk) and makes this a WORKING non-Pallas fallback at production
-    # scale (measured round 4: fwd 145 ms, fwd+bwd compiles and runs; the
-    # Pallas kernels remain ~30x faster).
-    frame, _ = jax.lax.scan(jax.checkpoint(step), frame0, (xs, ys))
-    return frame
 
 
 def events_to_pdf_frame_scatter(
@@ -473,14 +121,15 @@ def events_to_pdf_frame_scatter(
     sensor_size: Tuple[int, int] = (260, 346),
     window_size: int = 3,
 ) -> jax.Array:
-    """IWE via scatter-add — numerical oracle for the matmul path.
+    """IWE via one 2-D scatter-add per window tap — the plain reference
+    that `events_to_pdf_frame` is tested against.
 
     Same math as the reference kernel (src/utils/event_utils.py:31-61) with
     one deliberate deviation: the reference's `.at[rs, cs].add(mode='drop')`
     applies Python negative-index *wrapping* before dropping, so splat texels
     at coordinate -1..-n wrap to the opposite sensor edge. That is a physical
-    artifact (mass teleports across the sensor); both this oracle and the
-    matmul path drop out-of-sensor texels on every side instead.
+    artifact (mass teleports across the sensor); this oracle drops
+    out-of-sensor texels on every side, like the default splat.
     """
     H, W = sensor_size
     dtype = jnp.result_type(xs.dtype, jnp.float32)
@@ -513,48 +162,20 @@ def event_counts(
     xs: jax.Array,
     ys: jax.Array,
     sensor_size: Tuple[int, int],
-    chunk_size: int | None = None,
 ) -> jax.Array:
-    """Per-pixel event counts via one-hot matmuls (no scatter).
+    """Per-pixel event counts by scatter-add.
 
     Coordinates are truncated toward zero like the reference's
     `.astype(jnp.int16)` (src/utils/event_utils.py:76); event coordinates are
-    integral in practice so trunc == round there.
+    integral in practice so trunc == round there. NaN and out-of-sensor
+    events are dropped.
     """
     H, W = sensor_size
-    dtype = jnp.float32
-    xi = jnp.trunc(xs.astype(dtype))
-    yi = jnp.trunc(ys.astype(dtype))
-
-    if chunk_size is None:
-        chunk_size = _auto_chunk(xs.shape[0], H, W)
-    n = xi.shape[0]
-    n_chunks = max(1, -(-n // chunk_size))
-    pad = n_chunks * chunk_size - n
-    if pad:
-        fill = jnp.full((pad,), jnp.nan, dtype)
-        xi = jnp.concatenate([xi, fill])
-        yi = jnp.concatenate([yi, fill])
-    xi = xi.reshape(n_chunks, chunk_size)
-    yi = yi.reshape(n_chunks, chunk_size)
-
-    def onehot(c, n_axis):
-        idx = jax.lax.broadcasted_iota(dtype, (c.shape[0], n_axis), 1)
-        return (idx == c[:, None]).astype(dtype)
-
-    def step(counts, chunk):
-        cx, cy = chunk
-        u = onehot(cy, H)
-        v = onehot(cx, W)
-        # One-hot values (0/1) are exact in bf16 and accumulation is f32, so
-        # default precision is already exact here.
-        counts = counts + jax.lax.dot_general(
-            u, v, (((0,), (0,)), ((), ())), preferred_element_type=dtype
-        )
-        return counts, None
-
-    counts, _ = jax.lax.scan(step, jnp.zeros((H, W), dtype), (xi, yi))
-    return counts
+    xi, xvalid = _texel_index(jnp.trunc(xs.astype(jnp.float32)), W, False)
+    yi, yvalid = _texel_index(jnp.trunc(ys.astype(jnp.float32)), H, False)
+    flat = jnp.where(xvalid & yvalid, yi * W + xi, H * W)
+    counts = jnp.zeros((H * W,), jnp.float32).at[flat].add(1.0, mode="drop")
+    return counts.reshape(H, W)
 
 
 def make_event_mask(

@@ -15,113 +15,21 @@ reference times, src/eincm/losses.py:26,58).
 
 from __future__ import annotations
 
-from functools import partial
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 
-# Event-chunk budget for the backward one-hot matmuls (floats per chunk
-# operand); see eincm_tpu.ops.splat for the same pattern.
-_BWD_CHUNK_BUDGET = 16 * 1024 * 1024
 
-# Coarse-grid interpolation implementation: 'pallas' routes TPU exact-f32
-# calls with kernel-sized grids (h, w <= 128, c == 2) to
-# ops/interp_pallas.py (weight planes stay in VMEM; ~10% faster forward and
-# ~2x cheaper backward at DSEC scale); anything else — bf16/f64, CPU, and
-# 'xla' — uses the one-hot matmul path below, the reference semantics.
-_INTERP_IMPL = "pallas"
-
-
-def set_interp_impl(name: str) -> None:
-    """Select the coarse-theta interpolation impl: 'pallas' or 'xla'."""
-    assert name in ("pallas", "xla"), name
-    global _INTERP_IMPL
-    _INTERP_IMPL = name
-
-
-def get_interp_impl() -> str:
-    return _INTERP_IMPL
-
-
-@jax.custom_vjp
 def gather_theta_at_events(
     theta: jax.Array, xs: jax.Array, ys: jax.Array
 ) -> jax.Array:
     """Gather per-event velocities theta[round(y), round(x), :] -> (E, 2).
 
-    Forward is a plain XLA gather. The VJP w.r.t. theta is NOT the default
-    scatter-add (which serializes on TPU — it cost ~30 ms per loss+grad at
-    just 8k events); instead the transpose is computed as banded one-hot
-    matmuls on the MXU:   dtheta[h, w, c] = sum_e 1[h=y_e] 1[w=x_e] g[e, c].
-    """
+    A plain XLA gather; its VJP w.r.t. theta is a scatter-add."""
     xi = jnp.round(xs).astype(jnp.int32)
     yi = jnp.round(ys).astype(jnp.int32)
     return theta[yi, xi, :]
-
-
-def _gather_fwd(theta, xs, ys):
-    return gather_theta_at_events(theta, xs, ys), (theta, xs, ys)
-
-
-def _gather_bwd(res, g):
-    theta, xs, ys = res
-    (h, w, c), dtype = theta.shape, theta.dtype
-    e = xs.shape[0]
-    # accumulate in at least f32; keep f64 when the solve runs in x64
-    acc_dtype = jnp.result_type(dtype, jnp.float32)
-
-    chunk = max(512, _BWD_CHUNK_BUDGET // (h + w * c))
-    chunk = min(chunk, max(512, e))
-    chunk = -(-chunk // 128) * 128
-    n_chunks = max(1, -(-e // chunk))
-    pad = n_chunks * chunk - e
-
-    xi = jnp.round(xs.astype(acc_dtype))
-    yi = jnp.round(ys.astype(acc_dtype))
-    g = g.astype(acc_dtype)
-    if pad:
-        fill = jnp.full((pad,), -1.0, acc_dtype)  # matches no pixel
-        xi = jnp.concatenate([xi, fill])
-        yi = jnp.concatenate([yi, fill])
-        g = jnp.concatenate([g, jnp.zeros((pad, c), acc_dtype)])
-
-    def onehot(coord, n_axis):
-        idx = jax.lax.broadcasted_iota(acc_dtype, (coord.shape[0], n_axis), 1)
-        return (idx == coord[:, None]).astype(acc_dtype)
-
-    def step(acc, args):
-        cxi, cyi, cg = args
-        oy = onehot(cyi, h)  # (E, H)
-        ox = onehot(cxi, w)  # (E, W)
-        rhs = (ox[:, :, None] * cg[:, None, :]).reshape(-1, w * c)  # (E, W*C)
-        acc = acc + jax.lax.dot_general(
-            oy,
-            rhs,
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=acc_dtype,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        return acc, None
-
-    acc0 = jnp.zeros((h, w * c), acc_dtype)
-    if n_chunks == 1:
-        acc, _ = step(acc0, (xi, yi, g))
-    else:
-        acc, _ = jax.lax.scan(
-            step,
-            acc0,
-            (
-                xi.reshape(n_chunks, chunk),
-                yi.reshape(n_chunks, chunk),
-                g.reshape(n_chunks, chunk, c),
-            ),
-        )
-    # Event coordinates only enter through round() -> zero cotangent.
-    return acc.reshape(h, w, c).astype(dtype), jnp.zeros_like(xs), jnp.zeros_like(ys)
-
-
-gather_theta_at_events.defvjp(_gather_fwd, _gather_bwd)
 
 
 @jax.jit
@@ -183,30 +91,15 @@ def interp_theta_at_events(
     Numerically equal to
         gather_theta_at_events(scale_theta_to_sensor_size(theta, S,
                                'bilinear'), xs, ys)
-    but ~1000x cheaper at DSEC scale: instead of materializing the full
-    (H, W, 2) field and gathering per event (whose VJP is a serialized TPU
-    scatter), each event contracts small bilinear one-hot weights against the
-    (h, w, 2) grid — two tiny MXU matmuls per chunk, matmul-transpose VJP.
-
-    The default chunk covers DSEC-scale windows in ONE chunk: a 1.5M-event
-    single-chunk evaluation measured 1.96 ms vs 2.27 ms for 12 lax.map
-    chunks of 128k (round 3); the (E, 16) weight intermediates peak at a
-    few hundred MB of HBM, well within budget.
+    but far cheaper at DSEC scale: instead of materializing the full
+    (H, W, 2) field and gathering per event, each event contracts small
+    bilinear weights against the (h, w, 2) grid — one (E, h) x (h, w*c)
+    matmul per chunk plus a weighted sum over w. The default chunk covers a
+    DSEC-scale window (1.5M events) in one chunk.
     """
     h, w, c = theta.shape
     H, W = sensor_size
     dtype = theta.dtype
-    if (
-        _INTERP_IMPL == "pallas"
-        and jax.default_backend() == "tpu"
-        and dtype == jnp.float32
-        and c == 2
-        and h <= 128
-        and w <= 128
-    ):
-        from eincm_tpu.ops.interp_pallas import interp_theta_at_events_pallas
-
-        return interp_theta_at_events_pallas(theta, xs, ys, sensor_size)
     xi = jnp.round(xs.astype(dtype))
     yi = jnp.round(ys.astype(dtype))
 

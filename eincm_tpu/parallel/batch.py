@@ -1,7 +1,7 @@
 """Multi-window batching and multi-chip sharding of the EINCM solve.
 
 The reference is strictly single-device and sequential over event windows
-(src/experiments/e00/exp_mgr.py:620). On TPU the dominant axis of scale is
+(src/experiments/e00/exp_mgr.py:620). Here the dominant axis of scale is
 the window axis: windows are independent given their priors, so they batch
 under `vmap` and shard over a `jax.sharding.Mesh` ("windows" axis = data
 parallelism; SURVEY.md §2.3).
@@ -327,7 +327,8 @@ def eval_batch_sharded(
     exp_mgr.py:662-714, a serial per-window loop): each device takes
     batch/n_dev windows and evaluates them sequentially via `lax.map` —
     like the sharded solver, per-window shapes stay identical to the serial
-    path (no vmapped Pallas kernels), so results match the serial eval.
+    path (nothing is vmapped over windows), so results match the serial
+    eval.
     Windows are independent; no collectives.
 
     Args:

@@ -1,12 +1,12 @@
 """Multi-host (multi-process) runtime initialization.
 
 The reference is strictly single-process (SURVEY.md §2.3: no distributed
-imports anywhere). For TPU pods the JAX-native path is
+imports anywhere). For multi-host GPU clusters the JAX-native path is
 `jax.distributed.initialize`: every host process connects to a coordinator,
-after which `jax.devices()` spans the pod and the `Mesh`-based solvers in
-`eincm_tpu.parallel.batch` shard over ICI/DCN transparently — the window
-axis is data-parallel, so no code change is needed beyond building the mesh
-from the global device list.
+after which `jax.devices()` spans every host and the `Mesh`-based solvers in
+`eincm_tpu.parallel.batch` shard over NVLink / the network transparently —
+the window axis is data-parallel, so no code change is needed beyond
+building the mesh from the global device list.
 
 Gated behind `DistributedConfig.enable` so single-host runs (and the test
 suite) never touch the coordinator machinery.
@@ -27,7 +27,7 @@ class DistributedConfig:
     """Multi-process runtime settings (see experiments.config for YAML keys).
 
     With every field None, `jax.distributed.initialize` auto-detects the
-    cluster environment (TPU pod metadata, SLURM, etc.); explicit values
+    cluster environment (SLURM, Open MPI, etc.); explicit values
     support manual bring-up:
 
         coordinator_address: "host:port" of process 0.

@@ -8,9 +8,32 @@ unfiltered tracebacks — SURVEY.md §5 "race detection" analogue).
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from pathlib import Path
+from typing import Dict, Optional
 
 import jax
+
+# <checkout>/.jax_cache: a fixed path, because the path is part of the
+# cache key (a cache that moves never hits); git-ignored
+DEFAULT_COMPILATION_CACHE_DIR = str(
+    Path(__file__).resolve().parents[2] / ".jax_cache"
+)
+
+
+def enable_compilation_cache(path: Optional[str] = None) -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    JAX_COMPILATION_CACHE_DIR, when set, is JAX's own setting and wins: no
+    other path is set in code then. Otherwise the cache goes to `path`, or
+    to <checkout>/.jax_cache when `path` is None.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = path or DEFAULT_COMPILATION_CACHE_DIR
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def update_jax_config(options: Dict) -> None:

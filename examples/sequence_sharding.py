@@ -16,8 +16,8 @@ This demo runs the same sequence three ways and compares accuracy:
                     (`parallel/batch.py:sequence_shard_solve`).
 
 Runs anywhere: forces a virtual 8-device CPU mesh (the same recipe the test
-suite and the driver's multi-chip dry run use). On a real TPU pod slice the
-identical code shards over the physical mesh — the schedules only touch
+suite and the multi-device dry run use). On several GPUs the identical
+code shards over the physical mesh — the schedules only touch
 `jax.sharding` / `shard_map` / `ppermute`.
 
 Usage:  python examples/sequence_sharding.py

@@ -3,18 +3,17 @@
 Round-2 f32 parity was measured at toy scale (40x56, 4k events); this
 harness measures it in the production regime the reference warns about
 (configs/main.yaml:34 BFGS-needs-f64 warning; SURVEY.md §7 "float64" hard
-part): 480x640 sensor, 1.5M events, alpha=2000/beta=4000, and the single-pass
-bf16 banded splat kernels.
+part): 480x640 sensor, 1.5M events, alpha=2000/beta=4000.
 
 Two phases:
   1. a CPU subprocess evaluates the REFERENCE loss+grad in f64 on a seeded
      DSEC-scale window and saves them;
-  2. this (TPU) process evaluates OUR f32 loss+grad with each splat kernel
-     and reports relative errors, then runs a full synthetic DSEC-scale
-     3-window solve per kernel and reports final AEE.
+  2. this process evaluates OUR f32 loss+grad on its default JAX device and
+     reports relative errors, then runs a full synthetic DSEC-scale
+     3-window solve and reports final AEE.
 
-Run on the real TPU:  python scripts/dsec_scale_parity.py
-Prints one JSON line; results are recorded in PARITY.md.
+Run on a GPU:  python scripts/dsec_scale_parity.py
+Prints one JSON line.
 """
 
 import json
@@ -115,14 +114,12 @@ if __name__ == "__main__":
     import jax
     import jax.numpy as jnp
 
-    from eincm_tpu.data.staging import tile_sort_events
     from eincm_tpu.models.loss import (
         LossParams,
         LossStatics,
         compute_window_statics,
         solver_loss,
     )
-    from eincm_tpu.ops import splat as tpu_splat
 
     print(f"backend: {jax.default_backend()}", file=sys.stderr)
 
@@ -134,56 +131,15 @@ if __name__ == "__main__":
     edge_ts = np.array([0.0, 1.0], np.float32)
     theta = rng.uniform(-6.0, 6.0, (*COARSE, 2)).astype(np.float32)
 
-    # tile-sorted copy for the banded kernels (loss is permutation-invariant)
-    xs_t, ys_t, ts_t, _ = tile_sort_events(
-        xs, ys, ts, np.zeros(N_EVENTS, bool), H
-    )
-
     statics = LossStatics(sensor_size=(H, W), n_pyr_lvls=5)
     params = LossParams(ALPHA, BETA, 0.0, 0.0)
 
     results = {"f_ref": float(f_ref)}
-    for impl in ("xla", "pallas", "pallas_banded", "pallas_banded2d"):
-        tpu_splat.set_splat_impl(impl)
-        banded = impl in ("pallas_banded", "pallas_banded2d")
-        exs, eys, ets = (xs_t, ys_t, ts_t) if banded else (xs, ys, ts)
 
+    def loss_grad(p):
         @jax.jit
-        def fg(th, exs=jnp.asarray(exs), eys=jnp.asarray(eys),
-               ets=jnp.asarray(ets)):
-            wstat = compute_window_statics(
-                exs, eys, jnp.asarray(edges64, jnp.float32), (H, W)
-            )
-            return jax.value_and_grad(solver_loss)(
-                th, exs, eys, ets,
-                jnp.asarray(edges64, jnp.float32), jnp.asarray(edge_ts),
-                params, 0, statics, wstat,
-            )
-
-        try:
-            f, g = fg(jnp.asarray(theta))
-            results[f"loss_relerr_{impl}"] = rel_err(float(f), f_ref)
-            results[f"grad_relerr_{impl}"] = rel_err(np.asarray(g), g_ref)
-        except Exception as e:  # e.g. HBM OOM of a non-shipping impl
-            results[f"loss_relerr_{impl}"] = f"failed: {type(e).__name__}"
-            print(f"{impl} loss/grad failed: {e}"[:500], file=sys.stderr)
-
-    # ---- per-objective f32 stress (SURVEY §7: "parity must be validated
-    # per-objective"): gamma (TV regularizer, finest-level gated — active in
-    # the MVSEC-outdoor production tuning, run.sh:73-97) and delta (event-
-    # collapse divergence) each activated at DSEC scale on the shipping
-    # kernel, against their own f64 reference evaluations -------------------
-    for case, (a_, b_, g_, d_) in {
-        "gamma_tv": (20.0, 35.0, 0.0025, 0.0),
-        "delta_collapse": (20.0, 35.0, 0.0, 1.0),
-    }.items():
-        fr, gr = ref_loss_grad(a_, b_, g_, d_)
-        p = LossParams(a_, b_, g_, d_)
-        tpu_splat.set_splat_impl("pallas_banded2d")
-
-        @jax.jit
-        def fg2(th, p=p, exs=jnp.asarray(xs_t), eys=jnp.asarray(ys_t),
-                ets=jnp.asarray(ts_t)):
+        def fg(th, exs=jnp.asarray(xs), eys=jnp.asarray(ys),
+               ets=jnp.asarray(ts)):
             wstat = compute_window_statics(
                 exs, eys, jnp.asarray(edges64, jnp.float32), (H, W)
             )
@@ -193,13 +149,26 @@ if __name__ == "__main__":
                 p, 0, statics, wstat,
             )
 
-        try:
-            f, g = fg2(jnp.asarray(theta))
-            results[f"loss_relerr_{case}"] = rel_err(float(f), fr)
-            results[f"grad_relerr_{case}"] = rel_err(np.asarray(g), gr)
-        except Exception as e:
-            results[f"loss_relerr_{case}"] = f"failed: {type(e).__name__}"
-            print(f"{case} loss/grad failed: {e}"[:500], file=sys.stderr)
+        f, g = fg(jnp.asarray(theta))
+        return float(f), np.asarray(g)
+
+    f, g = loss_grad(params)
+    results["loss_relerr"] = rel_err(f, f_ref)
+    results["grad_relerr"] = rel_err(g, g_ref)
+
+    # ---- per-objective f32 stress (SURVEY §7: "parity must be validated
+    # per-objective"): gamma (TV regularizer, finest-level gated — active in
+    # the MVSEC-outdoor production tuning, run.sh:73-97) and delta (event-
+    # collapse divergence) each activated at DSEC scale, against their own
+    # f64 reference evaluations ---------------------------------------------
+    for case, (a_, b_, g_, d_) in {
+        "gamma_tv": (20.0, 35.0, 0.0025, 0.0),
+        "delta_collapse": (20.0, 35.0, 0.0, 1.0),
+    }.items():
+        fr, gr = ref_loss_grad(a_, b_, g_, d_)
+        f, g = loss_grad(LossParams(a_, b_, g_, d_))
+        results[f"loss_relerr_{case}"] = rel_err(f, fr)
+        results[f"grad_relerr_{case}"] = rel_err(g, gr)
 
     # ---- full DSEC-scale solve: final AEE per kernel ---------------------
     from eincm_tpu.data.staging import stage_datasample
@@ -233,34 +202,25 @@ if __name__ == "__main__":
         ),
     )
     v = np.array([6.0, -4.0])
-    for impl in ("pallas", "pallas_banded", "pallas_banded2d"):
-        tpu_splat.set_splat_impl(impl)
-        solver = make_window_solver(cfg)
-        prior = cfg.zero_pyramid()
-        aees = []
-        try:
-            for i in range(3):
-                staged = stage_datasample(
-                    dl[i], edge_fn=edge_fn, preprocess=False, pad_to=N_EVENTS,
-                    sort_by_row=(impl == "pallas_banded"),
-                    sort_by_tile=(impl == "pallas_banded2d"),
-                )
-                res = solver(staged.window, prior, is_first=(i == 0))
-                prior = res.final_theta_pyr
-                full = np.asarray(
-                    scale_theta_to_sensor_size(
-                        res.final_theta_pyr[0], (H, W), "bilinear"
-                    )
-                )
-                ev = staged.eval_events
-                ix = np.clip(np.asarray(ev["x"]).astype(int), 0, W - 1)
-                iy = np.clip(np.asarray(ev["y"]).astype(int), 0, H - 1)
-                err = np.linalg.norm(full[iy, ix] - v[None, :], axis=-1)
-                aees.append(float(err.mean()))
-            results[f"solve_aee_{impl}"] = round(float(np.mean(aees)), 4)
-        except Exception as e:
-            results[f"solve_aee_{impl}"] = f"failed: {type(e).__name__}"
-            print(f"{impl} solve failed: {e}"[:500], file=sys.stderr)
-        print(f"solve[{impl}]: {results[f'solve_aee_{impl}']}", file=sys.stderr)
+    solver = make_window_solver(cfg)
+    prior = cfg.zero_pyramid()
+    aees = []
+    for i in range(3):
+        staged = stage_datasample(
+            dl[i], edge_fn=edge_fn, preprocess=False, pad_to=N_EVENTS,
+        )
+        res = solver(staged.window, prior, is_first=(i == 0))
+        prior = res.final_theta_pyr
+        full = np.asarray(
+            scale_theta_to_sensor_size(
+                res.final_theta_pyr[0], (H, W), "bilinear"
+            )
+        )
+        ev = staged.eval_events
+        ix = np.clip(np.asarray(ev["x"]).astype(int), 0, W - 1)
+        iy = np.clip(np.asarray(ev["y"]).astype(int), 0, H - 1)
+        err = np.linalg.norm(full[iy, ix] - v[None, :], axis=-1)
+        aees.append(float(err.mean()))
+    results["solve_aee"] = round(float(np.mean(aees)), 4)
 
     print(json.dumps(results))

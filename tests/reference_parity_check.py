@@ -50,7 +50,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from eincm import losses as ref_losses  # noqa: E402
 from utils import event_utils as ref_event_utils  # noqa: E402
 
-from eincm_tpu.models import loss as tpu_loss  # noqa: E402
+from eincm_tpu.models import loss as our_loss_mod  # noqa: E402
 from eincm_tpu.models.loss import LossParams, LossStatics  # noqa: E402
 
 
@@ -98,7 +98,7 @@ def our_loss(w, params, lvl, n_pyr_lvls=5, method="bilinear"):
         sensor_size=w["sensor_size"], n_pyr_lvls=n_pyr_lvls,
         scale_to_sensor_size_method=method,
     )
-    loss, _ = tpu_loss.loss_func(
+    loss, _ = our_loss_mod.loss_func(
         w["theta"], w["xs"], w["ys"], w["ts"], w["edges"], w["edge_ts"],
         params, lvl, statics,
     )
@@ -110,10 +110,10 @@ def our_solver_loss(w, params, lvl, n_pyr_lvls=5, method="bilinear"):
         sensor_size=w["sensor_size"], n_pyr_lvls=n_pyr_lvls,
         scale_to_sensor_size_method=method,
     )
-    wstat = tpu_loss.compute_window_statics(
+    wstat = our_loss_mod.compute_window_statics(
         w["xs"], w["ys"], w["edges"], w["sensor_size"]
     )
-    return tpu_loss.solver_loss(
+    return our_loss_mod.solver_loss(
         w["theta"], w["xs"], w["ys"], w["ts"], w["edges"], w["edge_ts"],
         params, lvl, statics, wstat,
     )
@@ -145,7 +145,7 @@ def main():
     ref_objs["theta_divergence"] = __import__(
         "eincm.regularizers", fromlist=["per_pix_theta_divergence"]
     ).per_pix_theta_divergence(scaled)
-    our_objs = tpu_loss.compute_loss_objectives(
+    our_objs = our_loss_mod.compute_loss_objectives(
         scaled, w["xs"], w["ys"], w["ts"], w["edges"], w["edge_ts"],
         w["sensor_size"],
     )
@@ -188,7 +188,7 @@ def main():
             w["edge_ts"], params.alpha, params.beta, params.gamma,
             params.delta, lvl, 5, w["sensor_size"], "bilinear",
         )
-        oh = tpu_loss.handover_loss_func(
+        oh = our_loss_mod.handover_loss_func(
             jnp.asarray(aw, jnp.float64), prev, w["theta"], w["xs"], w["ys"],
             w["ts"], w["edges"], w["edge_ts"], params, lvl,
             LossStatics(sensor_size=w["sensor_size"], n_pyr_lvls=5),
@@ -214,7 +214,7 @@ def main():
     results["wrap_vs_drop"] = rel_err(ol, rl)
 
     # --- wrap-compat splat vs the reference kernel, bit behavior ---------
-    from eincm_tpu.ops import splat as tpu_splat
+    from eincm_tpu.ops import splat as our_splat
 
     rng = np.random.default_rng(3)
     H, W = 40, 56
@@ -223,11 +223,11 @@ def main():
     cx = jnp.asarray(rng.uniform(-0.9, W - 1 + 0.49, 4096))
     cy = jnp.asarray(rng.uniform(-0.9, H - 1 + 0.49, 4096))
     ref_frame = ref_event_utils.events_to_pdf_frame(cx, cy, (H, W))
-    tpu_splat.set_splat_wrap_compat(True)
+    our_splat.set_splat_wrap_compat(True)
     try:
-        our_frame = tpu_splat.events_to_pdf_frame(cx, cy, (H, W))
+        our_frame = our_splat.events_to_pdf_frame(cx, cy, (H, W))
     finally:
-        tpu_splat.set_splat_wrap_compat(False)
+        our_splat.set_splat_wrap_compat(False)
     results["splat_wrap_compat"] = rel_err(our_frame, ref_frame)
 
     print(json.dumps(results))

@@ -234,14 +234,3 @@ class TestPrefetcher:
         with _pytest.raises(ValueError):
             list(pf)
 
-
-def test_row_sort_perm_matches_stable_argsort_for_integer_rows():
-    """The native counting-sort fast path must produce the exact stable
-    argsort permutation for integer-valued rows (what real loaders emit),
-    and the numpy fallback trivially does."""
-    from eincm_tpu.data.staging import _row_sort_perm
-
-    rng = np.random.default_rng(9)
-    ys = rng.integers(0, 256, 50_000).astype(np.float64)
-    perm = _row_sort_perm(ys)
-    np.testing.assert_array_equal(perm, np.argsort(ys, kind="stable"))

@@ -166,8 +166,12 @@ class TestProfilingUtils:
         sec, out = timed(f, jnp.arange(16.0), iters=3)
         assert sec > 0 and float(out) == float((jnp.arange(16.0) ** 2).sum())
 
-    def test_force_sync_empty_tree(self):
-        from eincm_tpu.utils.profiling import force_sync
+    def test_timer_section_waits_on_any_tree(self):
+        from eincm_tpu.utils.profiling import Timer
 
-        force_sync(())  # no leaves: must be a no-op, not an error
-        force_sync({"x": jnp.zeros((2, 2))})
+        t = Timer()
+        with t.section("empty", sync_on=()):  # no leaves: a no-op wait
+            pass
+        with t.section("tree", sync_on={"x": jnp.zeros((2, 2))}):
+            pass
+        assert t.counts == {"empty": 1, "tree": 1}

@@ -82,15 +82,6 @@ def test_rectify_all_kept_identity_map():
     np.testing.assert_array_equal(oy, y.astype(np.int16))
     np.testing.assert_array_equal(ot, np.arange(n))
 
-
-def test_sort_by_row_matches_argsort():
-    rng = np.random.default_rng(2)
-    ys = rng.uniform(0, 255, 100_000).astype(np.float32)
-    perm = ne.sort_events_by_row_perm(ys, 256)
-    expect = np.argsort(ys.astype(np.int64), kind="stable")
-    np.testing.assert_array_equal(perm, expect)
-
-
 def test_rectify_filter_multiworker_heavy_early_drops():
     """Regression: with n large enough for multiple workers and most drops
     concentrated in the FIRST workers' ranges, the in-place pass-2

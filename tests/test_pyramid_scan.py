@@ -1,12 +1,7 @@
 """Scan-over-levels solver equivalence vs the per-level build.
 
-Measured equivalence structure (round 5):
+Equivalence structure:
 
-- On the REAL TPU the two builds are BIT-EXACT — thetas, fun_vals,
-  iteration counts, handover weights — across 9 chained windows x 3
-  configs (asserted by tests/test_tpu_kernels.py::test_scan_solver_equivalence
-  under EINCM_REAL_TPU=1). TPU vector lanes pad every reduction to the same
-  tree shape, so the padded-BFGS arithmetic is identical.
 - On CPU, XLA's dense-algebra reduction trees differ between the D_l-sized
   and D_max-padded computations by ULPs (e.g. an 8-wide dot vs the same 8
   non-zeros inside a 128-wide dot), and the BFGS/handover chain amplifies
@@ -23,6 +18,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -109,14 +105,29 @@ def _assert_quality_equivalent(a, b, cfg, velocity):
     assert abs(aee_a - aee_b) < 0.1, (aee_a, aee_b)
 
 
+def _f64(tree):
+    return jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64), tree)
+
+
 class TestScanEquivalence:
+    # The first-window and chained comparisons run in float64: in float32
+    # the ULP differences between the D_l-sized and padded computations
+    # grow chaotically, and which seed lands within 0.1 px is luck (over 8
+    # seeds the per-window |dAEE| reaches ~0.2-0.28 px in float32, 0 in
+    # float64). In float64 both builds must agree; the other tests keep
+    # float32.
     def test_first_window(self):
-        cfg = _cfg()
-        w = _window()
-        zero = cfg.zero_pyramid()
-        a = solve_window(cfg, w, zero, is_first_sample=True)
-        b = solve_window_scan(cfg, w, zero, is_first_sample=True)
-        _assert_quality_equivalent(a, b, cfg, (2.0, -1.0))
+        with jax.enable_x64(True):
+            cfg = _cfg()
+            w = _f64(_window())
+            zero = cfg.zero_pyramid(jnp.float64)
+            a = solve_window(cfg, w, zero, is_first_sample=True)
+            b = solve_window_scan(cfg, w, zero, is_first_sample=True)
+            _assert_quality_equivalent(a, b, cfg, (2.0, -1.0))
+            np.testing.assert_allclose(
+                np.asarray(a.final_theta_pyr[0]),
+                np.asarray(b.final_theta_pyr[0]), rtol=1e-6, atol=1e-6,
+            )
 
     def test_chained_windows_with_handover_solve(self):
         cfg = _cfg(
@@ -126,10 +137,15 @@ class TestScanEquivalence:
             ),
             compute_prior_loss=True,
         )
-        prior_a = prior_b = cfg.zero_pyramid()
+        with jax.enable_x64(True):
+            self._chain(cfg)
+
+    @staticmethod
+    def _chain(cfg):
+        prior_a = prior_b = cfg.zero_pyramid(jnp.float64)
         for i in range(3):
             v = (2.0 + 0.3 * i, -1.0)
-            w = _window(seed=i, velocity=v)
+            w = _f64(_window(seed=i, velocity=v))
             a = solve_window(cfg, w, prior_a, is_first_sample=(i == 0))
             b = solve_window_scan(cfg, w, prior_b, is_first_sample=(i == 0))
             _assert_quality_equivalent(a, b, cfg, v)

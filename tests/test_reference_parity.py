@@ -58,7 +58,7 @@ def test_handover_f64(parity):
 
 
 def test_f32_delta_bounded(parity):
-    # informational bound: f32 is the TPU production dtype; the delta vs the
+    # informational bound: f32 is the production dtype; the delta vs the
     # reference's f64 must stay in the single-precision regime
     assert parity["loss_f32"] <= 1e-5
     assert parity["grad_f32"] <= 1e-4

@@ -1,7 +1,8 @@
-"""The MXU one-hot-matmul splat must agree with the scatter-add oracle."""
+"""The scatter-add splat must agree with the per-tap scatter oracle."""
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,9 +12,15 @@ from eincm_tpu.ops.splat import (
     events_to_pdf_frame,
     events_to_pdf_frame_scatter,
     make_event_mask,
+    splat_multi_ref,
 )
 
 SENSOR = (24, 32)
+
+# sensor widths of the reference deployments (ECD, MVSEC, DSEC) at reduced
+# event counts
+WIDTHS = {"ecd": (180, 240), "mvsec": (256, 336), "dsec": (480, 640)}
+CASES = ("spill", "nan_pad", "sentinel_pad", "out_of_sensor")
 
 
 def _rand_events(rng, n, sensor=SENSOR, spread=3.0):
@@ -21,6 +28,27 @@ def _rand_events(rng, n, sensor=SENSOR, spread=3.0):
     xs = rng.uniform(-spread, w - 1 + spread, n).astype(np.float32)
     ys = rng.uniform(-spread, h - 1 + spread, n).astype(np.float32)
     return xs, ys
+
+
+def _case_events(rng, sensor, case, n=3000):
+    """Warped coordinates for one edge case:
+    - spill: windows crossing every sensor edge;
+    - nan_pad: NaN padding at the end (staging's pad value);
+    - sentinel_pad: the loss layer's finite far off-sensor sentinel;
+    - out_of_sensor: a third of the events wholly outside the sensor."""
+    xs, ys = _rand_events(rng, n, sensor, spread=2.0)
+    if case == "nan_pad":
+        xs[-n // 10:] = np.nan
+        ys[-n // 10:] = np.nan
+    elif case == "sentinel_pad":
+        xs[-n // 10:] = -1e4
+        ys[-n // 10:] = -1e4
+    elif case == "out_of_sensor":
+        h, w = sensor
+        k = n // 3
+        xs[:k] = rng.uniform(w + 2, w + 50, k)
+        ys[k:2 * k] = rng.uniform(-50, -2.6, k)
+    return jnp.asarray(xs), jnp.asarray(ys)
 
 
 def test_single_event_center_mass():
@@ -39,11 +67,78 @@ def test_single_event_center_mass():
     assert np.isclose(float(frame.sum()), mass, rtol=1e-5)
 
 
-def test_matmul_matches_scatter(rng):
-    xs, ys = _rand_events(rng, 700)
-    a = events_to_pdf_frame(xs, ys, SENSOR, chunk_size=128)
-    b = events_to_pdf_frame_scatter(xs, ys, SENSOR)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6)
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("case", CASES)
+def test_splat_matches_oracle(rng, width, case):
+    sensor = WIDTHS[width]
+    xs, ys = _case_events(rng, sensor, case)
+    a = events_to_pdf_frame(xs, ys, sensor)
+    b = events_to_pdf_frame_scatter(xs, ys, sensor)
+    assert a.shape == sensor and a.dtype == jnp.float32
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("case", CASES)
+def test_splat_grad_matches_oracle(rng, width, case):
+    sensor = WIDTHS[width]
+    xs, ys = _case_events(rng, sensor, case)
+    cot = jnp.asarray(rng.normal(0, 1, sensor).astype(np.float32))
+
+    def grads(splat):
+        return jax.grad(lambda x, y: (splat(x, y, sensor) * cot).sum(),
+                        argnums=(0, 1))(xs, ys)
+
+    ga = grads(events_to_pdf_frame)
+    gb = grads(events_to_pdf_frame_scatter)
+    # NaN events carry no gradient path (the loss layer sanitizes them
+    # first); compare the finite events
+    fin = np.isfinite(np.asarray(xs)) & np.isfinite(np.asarray(ys))
+    for a, b in zip(ga, gb):
+        np.testing.assert_allclose(np.asarray(a)[fin], np.asarray(b)[fin],
+                                   rtol=1e-5, atol=1e-7)
+    if case == "sentinel_pad":
+        assert np.all(np.asarray(ga[0])[-300:] == 0.0)
+
+
+@pytest.mark.parametrize("n_refs", [1, 2, 3])
+def test_splat_multi_ref_matches_oracle(rng, n_refs):
+    sensor = WIDTHS["mvsec"]
+    xs, ys = _rand_events(rng, n_refs * 2000, sensor)
+    wx = jnp.asarray(xs.reshape(n_refs, -1))
+    wy = jnp.asarray(ys.reshape(n_refs, -1))
+    cot = jnp.asarray(rng.normal(0, 1, (n_refs, *sensor)).astype(np.float32))
+
+    def oracle(x, y):
+        return jax.vmap(
+            lambda p, q: events_to_pdf_frame_scatter(p, q, sensor))(x, y)
+
+    def ours(x, y):
+        return splat_multi_ref(x, y, sensor)
+
+    np.testing.assert_allclose(np.asarray(ours(wx, wy)),
+                               np.asarray(oracle(wx, wy)), rtol=1e-5,
+                               atol=1e-7)
+    for f in (ours, oracle):
+        assert f(wx, wy).shape == (n_refs, *sensor)
+    ga = jax.grad(lambda x, y: (ours(x, y) * cot).sum(), (0, 1))(wx, wy)
+    gb = jax.grad(lambda x, y: (oracle(x, y) * cot).sum(), (0, 1))(wx, wy)
+    for a, b in zip(ga, gb):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
+                                   atol=1e-7)
+
+
+def test_splat_keeps_float64(rng):
+    xs, ys = _rand_events(rng, 500)
+    with jax.enable_x64(True):
+        a = events_to_pdf_frame(jnp.asarray(xs, jnp.float64),
+                                jnp.asarray(ys, jnp.float64), SENSOR)
+        b = events_to_pdf_frame_scatter(jnp.asarray(xs, jnp.float64),
+                                        jnp.asarray(ys, jnp.float64), SENSOR)
+        assert a.dtype == jnp.float64
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-12,
+                                   atol=1e-15)
 
 
 def test_out_of_bounds_dropped(rng):
@@ -72,13 +167,6 @@ def test_nan_events_dropped(rng):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-7)
 
 
-def test_chunk_padding_invariance(rng):
-    xs, ys = _rand_events(rng, 333)  # not a multiple of any chunk
-    a = events_to_pdf_frame(xs, ys, SENSOR, chunk_size=128)
-    b = events_to_pdf_frame(xs, ys, SENSOR, chunk_size=512)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6)
-
-
 def test_window5(rng):
     xs, ys = _rand_events(rng, 200)
     a = events_to_pdf_frame(xs, ys, SENSOR, window_size=5)
@@ -99,9 +187,24 @@ def test_event_counts_and_mask(rng):
     assert not bool(mask[0, 0])
 
 
-def test_splat_gradient_finite_difference(rng):
-    import jax
+@pytest.mark.parametrize("spread", [0.0, 0.9, 6.0])
+def test_event_counts_match_numpy(rng, spread):
+    """Counts truncate toward zero (reference .astype(int16)); NaN and
+    out-of-sensor events are dropped, negative ones are not wrapped."""
+    h, w = SENSOR
+    xs, ys = _rand_events(rng, 4000, SENSOR, spread=spread)
+    xs[:50] = np.nan
+    counts = np.asarray(event_counts(jnp.asarray(xs), jnp.asarray(ys), SENSOR))
+    ref = np.zeros(SENSOR)
+    fin = np.isfinite(xs) & np.isfinite(ys)
+    xi = np.trunc(xs[fin]).astype(int)
+    yi = np.trunc(ys[fin]).astype(int)
+    keep = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    np.add.at(ref, (yi[keep], xi[keep]), 1.0)
+    np.testing.assert_array_equal(counts, ref)
 
+
+def test_splat_gradient_finite_difference(rng):
     xs, ys = _rand_events(rng, 50)
     xs = jnp.asarray(xs)
     ys = jnp.asarray(ys)
@@ -114,68 +217,6 @@ def test_splat_gradient_finite_difference(rng):
     eps = 1e-3
     fd = (f(eps) - f(-eps)) / (2 * eps)
     assert np.isclose(float(g), float(fd), rtol=1e-2)
-
-
-class TestBandedSplat:
-    def _sorted_events(self, rng, n=2000, vy=2.0):
-        h, w = SENSOR
-        ys0 = np.sort(rng.uniform(1, h - 2, n)).astype(np.float32)
-        xs = rng.uniform(0, w - 1, n).astype(np.float32)
-        # warped rows: sorted base plus bounded displacement
-        dts = rng.uniform(0, 1, n).astype(np.float32)
-        wy = ys0 - vy * dts
-        return jnp.asarray(xs), jnp.asarray(wy)
-
-    def test_matches_standard_when_sorted(self, rng):
-        from eincm_tpu.ops.splat import events_to_pdf_frame_banded
-
-        xs, wy = self._sorted_events(rng)
-        # band=12 < H=24: genuinely sub-band (chunk row span ~2 + vy 2 + window)
-        a = events_to_pdf_frame_banded(xs, wy, SENSOR, band=12, chunk_size=128)
-        b = events_to_pdf_frame(xs, wy, SENSOR)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-4,
-                                   atol=1e-5)
-
-    def test_nan_padding(self, rng):
-        from eincm_tpu.ops.splat import events_to_pdf_frame_banded
-
-        xs, wy = self._sorted_events(rng, n=300)
-        a = events_to_pdf_frame_banded(xs, wy, SENSOR, band=12, chunk_size=128)
-        xs2 = jnp.concatenate([xs, jnp.array([jnp.nan])])
-        wy2 = jnp.concatenate([wy, jnp.array([jnp.nan])])
-        b = events_to_pdf_frame_banded(xs2, wy2, SENSOR, band=12, chunk_size=128)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5)
-
-    def test_gradient_matches_standard(self, rng):
-        import jax
-
-        from eincm_tpu.ops.splat import events_to_pdf_frame_banded
-
-        xs, wy = self._sorted_events(rng, n=2000)
-        cot = jnp.asarray(rng.normal(0, 1, SENSOR).astype(np.float32))
-
-        def f_banded(wy):
-            return (events_to_pdf_frame_banded(xs, wy, SENSOR, band=12,
-                                               chunk_size=128) * cot).sum()
-
-        def f_std(wy):
-            return (events_to_pdf_frame(xs, wy, SENSOR) * cot).sum()
-
-        g_b = jax.grad(f_banded)(wy)
-        g_s = jax.grad(f_std)(wy)
-        np.testing.assert_allclose(np.asarray(g_b), np.asarray(g_s),
-                                   rtol=1e-3, atol=1e-5)
-
-    def test_excessive_displacement_drops(self, rng):
-        """Rows beyond the band above a chunk's min warped row are dropped."""
-        from eincm_tpu.ops.splat import events_to_pdf_frame_banded
-
-        wy = jnp.asarray(np.array([2.0, 22.0], np.float32))  # span > band=8
-        xs = jnp.asarray(np.array([5.0, 5.0], np.float32))
-        a = events_to_pdf_frame_banded(xs, wy, SENSOR, band=8, chunk_size=512)
-        # first event present, second dropped
-        assert float(a[2, 5]) > 0
-        assert float(a[22, 5]) == 0.0
 
 
 def test_wrap_compat_mode(rng):
@@ -206,26 +247,3 @@ def test_wrap_compat_mode(rng):
         wrapped[h - 1, w - 1], g(-1 - 0.2) * g(-1 - 0.1), rtol=1e-6)
     # in-sensor mass identical to the plain mode
     np.testing.assert_allclose(wrapped[:3, :3], plain[:3, :3], rtol=1e-6)
-
-
-class TestBandedSentinelAnchor:
-    def test_sentinel_padding_does_not_pin_band(self, rng):
-        """Regression: a chunk mixing real events with finite far-off-sensor
-        padding sentinels (-1e4, models/loss.py _sanitize_events) used to
-        anchor its band at row 0 via nanmin, dropping the chunk's in-sensor
-        mass. The anchor must consider in-sensor rows only."""
-        from eincm_tpu.ops.splat import (
-            events_to_pdf_frame_banded,
-            events_to_pdf_frame_scatter,
-        )
-
-        H, W = 64, 48
-        n = 1000  # not a multiple of chunk_size -> a straddling mixed chunk
-        ys = np.sort(rng.uniform(0, H - 1, n)).astype(np.float32)
-        xs = rng.uniform(0, W - 1, n).astype(np.float32)
-        pad = np.full(128 - (n % 128), -1e4, np.float32)
-        jx = jnp.asarray(np.concatenate([xs, pad]))
-        jy = jnp.asarray(np.concatenate([ys, pad]))
-        a = events_to_pdf_frame_banded(jx, jy, (H, W), band=16, chunk_size=128)
-        b = events_to_pdf_frame_scatter(jnp.asarray(xs), jnp.asarray(ys), (H, W))
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-5)
